@@ -5,9 +5,10 @@ ppermutes, then runs THREE kernel calls: interior planes (sources all
 local) and the two edge planes (sources include the received halos). This
 script proves, by taint analysis over the jaxpr, that the interior call is
 data-INDEPENDENT of the collectives — XLA's latency-hiding scheduler can
-overlap the bulk of the force work with the halo exchange on a real pod
-(collective-permute-start/done; unmeasurable on this 1-chip environment —
-see docs/PERF.md "Interior/halo overlap").
+overlap the bulk of the force work with the halo exchange on several
+devices (collective-permute-start/done; the overlap itself is a device
+measurement). The kernel is traced in interpret mode so its pallas_call
+appears in the CPU jaxpr.
 
 Run: JAX_PLATFORMS=cpu python examples/analyze_halo_overlap.py
 Expected:
@@ -24,9 +25,9 @@ jax.config.update('jax_platforms', 'cpu')
 import jax.numpy as jnp
 from jax.extend.core import Literal
 
-from particle3d_tpu import reference_config, init_scene
-from particle3d_tpu.parallel import make_mesh
-from particle3d_tpu.parallel.domain_sharded import (
+from particle3d import reference_config, init_scene
+from particle3d.parallel import make_mesh
+from particle3d.parallel.domain_sharded import (
     build_sharded_dense, sharded_dense_steps)
 
 
@@ -50,7 +51,7 @@ def main():
     carry = build_sharded_dense(st, cfg, mesh)
     jaxpr = jax.make_jaxpr(
         lambda c: sharded_dense_steps(c, cfg, jnp.float32(1 / 30), 1,
-                                      mesh))(carry)
+                                      mesh, interpret=True))(carry)
     findings = []
 
     def analyze(jx, tainted_in):

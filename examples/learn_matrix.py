@@ -12,7 +12,7 @@ trajectory — a capability the reference's imperative Rust core
   3. recovers the matrix by Adam on the L2 snapshot mismatch, with
      ``jax.checkpoint`` (rematerialization) on the per-step body so the
      backward pass stores O(snapshots) state instead of O(steps) — the
-     standard TPU memory/FLOPs trade.
+     standard accelerator memory/FLOPs trade.
 
 Run (CPU is fine at this size):
 
@@ -39,8 +39,8 @@ def main():
     import numpy as np
     import optax
 
-    from particle3d_tpu import SimConfig, init_scene
-    from particle3d_tpu.engine.step import step
+    from particle3d import SimConfig, init_scene
+    from particle3d.engine.step import step
 
     k = 3
     hidden = jnp.asarray(

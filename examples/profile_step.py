@@ -1,16 +1,11 @@
 """Capture a jax.profiler trace of the production step (SURVEY §5 tracing).
 
 Writes a TensorBoard-loadable trace of K production steps (incremental
-dense cell layout at the 262k preset by default) plus the component-level
-wall-clock breakdown measured with host-forced fences.
+dense cell layout at the 262k preset by default) plus the window's
+wall-clock time.
 
-    python examples/profile_step.py --trace-dir /tmp/p3t_trace
-    tensorboard --logdir /tmp/p3t_trace   # -> Profile tab
-
-The round-2 measured budget at N=262k on a v5e (see docs/PERF.md): column
-kernel ~21 ms, incremental rebind ~13 ms (dominated by the slot-table
-nonzero + binning, not the mover scatters), integrate + packed-row concat
-~10 ms.
+    python examples/profile_step.py --trace-dir chiprun_out/trace
+    tensorboard --logdir chiprun_out/trace   # -> Profile tab
 """
 
 import argparse
@@ -24,14 +19,14 @@ def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--preset", default="particle_life_large")
     p.add_argument("--steps", type=int, default=8)
-    p.add_argument("--trace-dir", default="/tmp/p3t_trace")
+    p.add_argument("--trace-dir", default="chiprun_out/trace")
     a = p.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    from particle3d_tpu.models import make_scene
-    from particle3d_tpu.engine.step import simulate_dense
+    from particle3d.models import make_scene
+    from particle3d.engine.step import simulate_dense
 
     st, cfg, dt = make_scene(a.preset)
     dt = jnp.float32(dt)
@@ -47,7 +42,7 @@ def main():
 
     t0 = time.perf_counter()
     out, _ = simulate_dense(st, cfg, dt, a.steps)
-    float(jnp.sum(out.positions))  # host-forced fence (docs/PERF.md)
+    jax.block_until_ready(out.positions)
     sec = time.perf_counter() - t0
     print(f"{a.steps} steps in {sec*1e3:.1f} ms = "
           f"{sec/a.steps*1e3:.1f} ms/step ({a.steps/sec:.1f} steps/s)")

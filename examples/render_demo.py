@@ -29,11 +29,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from particle3d_tpu.models import make_scene
-    from particle3d_tpu.engine.step import simulate, simulate_dense, warmup
-    from particle3d_tpu.render.camera import default_camera
-    from particle3d_tpu.render.splat import render_frame
-    from particle3d_tpu.app.headless import save_gif
+    from particle3d.models import make_scene
+    from particle3d.engine.step import simulate, simulate_dense, warmup
+    from particle3d.render.camera import default_camera
+    from particle3d.render.splat import render_frame
+    from particle3d.app.headless import save_gif
 
     st, cfg, dt = make_scene(a.preset)
     st = warmup(st, cfg)
@@ -41,8 +41,8 @@ def main():
     dense = (cfg.neighbor == "celllist_pallas" and cfg.cell_grid is not None)
 
     if dense:  # persist the layout across frames (build the sort once)
-        from particle3d_tpu.engine.step import simulate_dense_carry
-        from particle3d_tpu.ops.celllist_dense import (
+        from particle3d.engine.step import simulate_dense_carry
+        from particle3d.ops.celllist_dense import (
             build_dense, scatter_back, default_mover_capacity)
 
         nsc, cap = cfg.cell_grid, cfg.cell_capacity

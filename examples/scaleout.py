@@ -4,9 +4,10 @@ Three launchable recipes (the reference has no distributed story at all —
 its ceiling is rayon threads on one CPU, SURVEY.md §2):
 
   ring2m       BASELINE config 4: gravitational N-body, N=2M, particle-
-               sharded ring all-pairs over ICI (`sharded_simulate`).
-  ring2level   The multi-host variant: 2-level DCN x ICI hierarchical ring
-               (`sharded_simulate_2level` + `initialize_distributed`).
+               sharded ring all-pairs (`sharded_simulate`).
+  ring2level   The multi-host variant: 2-level (hosts x devices)
+               hierarchical ring (`sharded_simulate_2level` +
+               `initialize_distributed`).
   slab16m      BASELINE config 5 direction: particle-life at large N on the
                state-sharded slab cell list (`sharded_dense_simulate`,
                O(N/D) state per chip).
@@ -18,8 +19,8 @@ the driver's multichip dryrun compiles):
         python examples/scaleout.py ring2m --n 4096 --steps 3
     ... slab16m --n 32768 --steps 3
 
-On a real pod slice, omit the env forcing, run one process per host, and
-pass --full (or an explicit --n). Multi-host processes must call
+On real GPUs, omit the env forcing, run one process per host, and pass
+--full (or an explicit --n). Multi-host processes must call
 `initialize_distributed()` first (done below).
 """
 
@@ -47,8 +48,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from particle3d_tpu import SimConfig, init_scene
-    from particle3d_tpu.parallel import (
+    from particle3d import SimConfig, init_scene
+    from particle3d.parallel import (
         initialize_distributed, make_mesh, auto_mesh_2d, shard_state,
         shard_state_2level, sharded_simulate, sharded_simulate_2level,
         sharded_dense_simulate)
@@ -63,9 +64,7 @@ def main():
         cfg = SimConfig(force_law="gravity", particle_effect_radius=20.0,
                         world_size=40.0, gravity_softening=0.05,
                         integrator="leapfrog",
-                        neighbor="allpairs_pallas" if
-                        jax.default_backend() == "tpu" else "allpairs",
-                        ).validate()
+                        neighbor="allpairs_pallas").validate()
         state = init_scene(jax.random.PRNGKey(0), n, cfg)
         dt = jnp.float32(1e-3)
         if a.mode == "ring2m":
@@ -85,7 +84,7 @@ def main():
               f"{a.steps/sec:.2f} steps/s "
               f"({float(n)*n*a.steps/sec:.3e} pair-interactions/s)")
     else:  # slab16m — fully stay-sharded: init -> steps, no replicated stage
-        from particle3d_tpu.parallel import (
+        from particle3d.parallel import (
             init_sharded_dense, sharded_dense_steps)
 
         nsc = 64 if (a.full or (a.n or 0) > 1_000_000) else 8
@@ -101,7 +100,7 @@ def main():
         step0 = 0
         ck = None
         if a.checkpoint:
-            from particle3d_tpu.utils import OrbaxCheckpointer
+            from particle3d.utils import OrbaxCheckpointer
 
             ck = OrbaxCheckpointer(a.checkpoint)
             if ck.steps():

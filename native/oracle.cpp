@@ -14,7 +14,7 @@
 // order (per-particle serial, particles OpenMP-parallel: Jacobi update
 // from a snapshot, so parallelism cannot change results).
 //
-// Exposed as a C ABI for ctypes (see particle3d_tpu/native.py).
+// Exposed as a C ABI for ctypes (see particle3d/native.py).
 
 #include <cmath>
 #include <cstdint>

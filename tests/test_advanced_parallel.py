@@ -1,4 +1,4 @@
-"""2-level (DCN x ICI) hierarchical ring + differentiable simulation."""
+"""2-level (hosts x devices) hierarchical ring + differentiable simulation."""
 
 import functools
 
@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from particle3d_tpu import reference_config, init_scene, simulate, step
-from particle3d_tpu.ops import forces as F
-from particle3d_tpu.ops.allpairs import allpairs_forces
-from particle3d_tpu.parallel import make_mesh_2d, ring_forces_2level
+from particle3d import reference_config, init_scene, simulate, step
+from particle3d.ops import forces as F
+from particle3d.ops.allpairs import allpairs_forces
+from particle3d.parallel import make_mesh_2d, ring_forces_2level
 
 
 @pytest.mark.parametrize("dcn,ici", [(2, 4), (4, 2)])
@@ -77,10 +77,10 @@ def test_gradient_matches_finite_differences():
 
 def test_sharded_cell_simulate_matches_single_device():
     """Column-slab sharded cell forces == single-device cadenced run."""
-    from particle3d_tpu.models import make_scene
-    from particle3d_tpu.engine.step import simulate_cadenced, warmup
-    from particle3d_tpu.parallel.domain import sharded_cell_simulate
-    from particle3d_tpu.parallel import make_mesh
+    from particle3d.models import make_scene
+    from particle3d.engine.step import simulate_cadenced, warmup
+    from particle3d.parallel.domain import sharded_cell_simulate
+    from particle3d.parallel import make_mesh
 
     st, cfg, dt = make_scene("lj_gas", n=512)
     cfgp = cfg.replace(neighbor="celllist_pallas", cell_grid=8,

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import pytest
 
-from particle3d_tpu import SimConfig, reference_config, init_scene
-from particle3d_tpu.app import SimulationApp
-from particle3d_tpu.models import make_scene, list_presets
-from particle3d_tpu.utils import save_checkpoint, load_checkpoint, measure_metrics
+from particle3d import SimConfig, reference_config, init_scene
+from particle3d.app import SimulationApp
+from particle3d.models import make_scene, list_presets
+from particle3d.utils import save_checkpoint, load_checkpoint, measure_metrics
 
 
 def _app(n=64):
@@ -101,7 +101,7 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_presets_step(name):
     state, cfg, dt = make_scene(name, n=64)
     cfg = cfg.replace(neighbor="allpairs")  # small-N test on CPU
-    from particle3d_tpu import step, warmup
+    from particle3d import step, warmup
 
     st = warmup(state, cfg)
     out = step(st, cfg, dt)
@@ -110,7 +110,7 @@ def test_presets_step(name):
 
 def test_lj_preset_small():
     state, cfg, dt = make_scene("lj_gas", n=512)
-    from particle3d_tpu import simulate, warmup
+    from particle3d import simulate, warmup
 
     st = warmup(state, cfg)
     out = simulate(st, cfg, dt, 5)

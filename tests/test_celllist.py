@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import SimConfig, reference_config, from_numpy, init_scene, step, simulate
-from particle3d_tpu.ops import forces as F
-from particle3d_tpu.ops.allpairs import allpairs_forces
-from particle3d_tpu.ops.celllist import (
+from particle3d import SimConfig, reference_config, from_numpy, init_scene, step, simulate
+from particle3d.ops import forces as F
+from particle3d.ops.allpairs import allpairs_forces
+from particle3d.ops.celllist import (
     celllist_forces, celllist_stats, build_cell_list, grid_dims,
     default_capacity, _cell_ids,
 )

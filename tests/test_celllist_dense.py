@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from particle3d_tpu import reference_config, init_scene, simulate
-from particle3d_tpu.engine.step import simulate_dense, warmup
-from particle3d_tpu.ops.celllist_dense import (
+from particle3d import reference_config, init_scene, simulate
+from particle3d.engine.step import simulate_dense, warmup
+from particle3d.ops.celllist_dense import (
     build_dense, rebind, scatter_back, bin_sid, default_mover_capacity)
 
 
@@ -152,7 +152,7 @@ def test_scatter_back_keeps_unplaced_particles():
 
 
 def test_app_uses_dense_path_when_budget_zero():
-    from particle3d_tpu.app.driver import SimulationApp
+    from particle3d.app.driver import SimulationApp
 
     cfg = reference_config(world_size=8.0).replace(
         neighbor="celllist_pallas", cell_grid=8, cell_capacity=16,
@@ -168,7 +168,7 @@ def test_app_uses_dense_path_when_budget_zero():
 def test_app_persists_dense_layout_across_ticks():
     """Two run_steps batches on the persisted layout == one simulate_dense
     of the total length (bit-equal: the layout is exactly fresh each step)."""
-    from particle3d_tpu.app.driver import SimulationApp
+    from particle3d.app.driver import SimulationApp
 
     cfg = reference_config(world_size=8.0).replace(
         neighbor="celllist_pallas", cell_grid=8, cell_capacity=16,
@@ -195,7 +195,7 @@ def test_app_mode_alternation_no_stale_layout():
     dense layout; a following dense-path window must not replay stale
     positions. Alternating n_steps=1 (dense) and n_steps=4 (cadenced, ample
     budget) flips modes every call."""
-    from particle3d_tpu.app.driver import SimulationApp
+    from particle3d.app.driver import SimulationApp
 
     cfg = reference_config(world_size=16.0).replace(
         neighbor="celllist_pallas", cell_grid=8, cell_capacity=32)
@@ -207,7 +207,7 @@ def test_app_mode_alternation_no_stale_layout():
     assert app._dense is None
     app.run_steps(1)   # dense again, rebuilt from CURRENT state
     ref = st
-    from particle3d_tpu import simulate
+    from particle3d import simulate
     ref = simulate(st, cfg, jnp.float32(1 / 60), 6)
     np.testing.assert_allclose(np.asarray(app.state.positions),
                                np.asarray(ref.positions),
@@ -277,7 +277,7 @@ def test_adaptive_escalation_recovers_exactness():
     """A clustering scene overflows a small capacity; the adaptive driver
     must rewind, escalate, and end with a mask-free (exact) trajectory that
     matches the dense all-pairs reference."""
-    from particle3d_tpu.engine.step import simulate_dense_adaptive
+    from particle3d.engine.step import simulate_dense_adaptive
 
     # single species, strong self-attraction: collapses into blobs
     cfg = _cfg(cell_capacity=2).replace(
@@ -309,12 +309,12 @@ class _FakeClock:
 
 def test_adaptive_cost_probe_switches_to_culled():
     """Cost-aware ladder: when an escalated rung's wall time exceeds
-    probe_factor x the cheapest rung, the driver probes the culled backend
+    probe_factor x the cheapest rung, the driver probes the all-pairs backend
     with the next (committed) window and, if the probe is faster, serves
     the rest of the run with it. probe_factor=0 makes the first eligible
     rung window trigger; a strictly-DECREASING fake clock makes the probe
     read faster than the rung -> deterministic switch."""
-    from particle3d_tpu.engine.step import simulate_dense_adaptive
+    from particle3d.engine.step import simulate_dense_adaptive
 
     cfg = _cfg(cell_capacity=2).replace(
         interaction_force=4.0,
@@ -327,9 +327,9 @@ def test_adaptive_cost_probe_switches_to_culled():
         st, cfg, dt, 60, chunk=10, verbose=msgs.append,
         probe_factor=0.0, ocap=0, _timer=clock)
     backends = [c for _, c, _ in hist]
-    assert any("probing the culled backend" in m for m in msgs)
-    assert any("switching to the culled" in m for m in msgs)
-    # sticky: after the switch every window is culled
+    assert any("probing the all-pairs backend" in m for m in msgs)
+    assert any("switching to the all-pairs" in m for m in msgs)
+    # sticky: after the switch every window is all-pairs
     i = backends.index("allpairs")
     assert all(b == "allpairs" for b in backends[i:])
     assert all(masked == 0 for _, _, masked in hist)
@@ -343,7 +343,7 @@ def test_adaptive_cost_probe_stays_when_rung_wins():
     """The reverse race: a strictly-INCREASING clock makes the probe read
     slower than the rung — the driver must NOT switch, and the rest of the
     run stays on the (exact) cell path."""
-    from particle3d_tpu.engine.step import simulate_dense_adaptive
+    from particle3d.engine.step import simulate_dense_adaptive
 
     cfg = _cfg(cell_capacity=2).replace(
         interaction_force=4.0,
@@ -355,8 +355,8 @@ def test_adaptive_cost_probe_stays_when_rung_wins():
     out, cap, hist = simulate_dense_adaptive(
         st, cfg, dt, 60, chunk=10, verbose=msgs.append,
         probe_factor=0.0, ocap=0, _timer=clock)
-    assert any("probing the culled backend" in m for m in msgs)
-    assert not any("switching to the culled" in m for m in msgs)
+    assert any("probing the all-pairs backend" in m for m in msgs)
+    assert not any("switching to the all-pairs" in m for m in msgs)
     backends = [c for _, c, _ in hist]
     assert backends[-1] != "allpairs"  # ended back on the cell path
     assert all(masked == 0 for _, _, masked in hist)
@@ -367,7 +367,7 @@ def test_adaptive_cost_probe_stays_when_rung_wins():
 
 
 def test_app_escalates_capacity_on_clustered_batch():
-    from particle3d_tpu.app.driver import SimulationApp
+    from particle3d.app.driver import SimulationApp
 
     cfg = _cfg(cell_capacity=2).replace(
         interaction_force=4.0,
@@ -389,8 +389,8 @@ def test_app_escalates_capacity_on_clustered_batch():
 def test_app_recovers_from_fallback_after_control_edit():
     """Fallback is not a one-way door: a scene-changing control flags the
     recovery probe, and when the base-geometry layout fits drop-free the
-    app leaves the culled fallback and resumes the cell path."""
-    from particle3d_tpu.app.driver import SimulationApp
+    app leaves the all-pairs fallback and resumes the cell path."""
+    from particle3d.app.driver import SimulationApp
 
     cfg = _cfg()  # uniform scene, fits base capacity 32
     st = init_scene(jax.random.PRNGKey(40), 600, cfg)
@@ -408,7 +408,7 @@ def test_app_recovers_from_fallback_after_control_edit():
 def test_app_fallback_recovery_is_throttled():
     """Without a control edit the probe only fires every 32nd degraded
     batch — never the per-tick O(N) pre-probe run_steps forswears."""
-    from particle3d_tpu.app.driver import SimulationApp
+    from particle3d.app.driver import SimulationApp
 
     cfg = _cfg()
     st = init_scene(jax.random.PRNGKey(41), 600, cfg)
@@ -425,7 +425,7 @@ def test_app_fallback_recovery_is_throttled():
 def test_app_stays_in_fallback_while_scene_still_clustered():
     """The probe must NOT reset when the base capacity still drops
     particles: a genuinely clustered scene stays on the exact fallback."""
-    from particle3d_tpu.app.driver import SimulationApp
+    from particle3d.app.driver import SimulationApp
 
     cfg = _cfg(cell_capacity=2).replace(
         interaction_force=4.0,
@@ -450,7 +450,7 @@ def test_app_stays_in_fallback_while_scene_still_clustered():
 def test_app_deescalates_capacity_when_scene_disperses():
     """A sticky escalated capacity also resets through the same probe:
     once the base geometry fits again, later batches run the cheap rung."""
-    from particle3d_tpu.app.driver import SimulationApp
+    from particle3d.app.driver import SimulationApp
 
     cfg = _cfg()  # base capacity 32 fits this uniform scene
     st = init_scene(jax.random.PRNGKey(43), 600, cfg)
@@ -463,39 +463,19 @@ def test_app_deescalates_capacity_when_scene_disperses():
     assert app.metrics()["cell_capacity"] == 32
 
 
-def test_vmem_gate_and_feasible_caps():
-    from particle3d_tpu.ops.pallas_celllist import (
-        kernel_vmem_bytes, max_feasible_cap, _VMEM_BUDGET)
+def test_escalate_cap_doubles_to_max_cap():
+    """The ladder runs on occupancy alone: double, clip to max_cap, end."""
+    from particle3d.engine.step import escalate_cap
 
-    # post-relayout calibration anchors (slot-minor receivers): (40,320)
-    # OOMed the v5e at 16.35MB scoped; (40,256) and (44,256) compiled
-    assert kernel_vmem_bytes(40, 320) > _VMEM_BUDGET
-    assert kernel_vmem_bytes(40, 256) < _VMEM_BUDGET
-    assert kernel_vmem_bytes(44, 256) < _VMEM_BUDGET
-    assert kernel_vmem_bytes(40, 256) < kernel_vmem_bytes(40, 320)
-    mf = max_feasible_cap(40)
-    assert 256 <= mf < 320
-
-
-def test_next_feasible_cap_skips_misaligned_and_oversized(monkeypatch):
-    """The VMEM model is NOT monotone in cap (misaligned caps get a 1<<62
-    sentinel; awkward alignments inflate the working-set term), so the
-    escalation scan must CONTINUE past budget/alignment failures, not break
-    (regression: escalate_cap(40, 128, 200) returned None on real TPUs even
-    though cap=144 is aligned and fits, prematurely ending the ladder)."""
-    from particle3d_tpu.engine import step as STEP
-    from particle3d_tpu.ops import pallas_allpairs as PA
-
-    monkeypatch.setattr(PA, "_use_interpret", lambda: False)
-    # 129 is misaligned at nsc=40 => sentinel; the scan must reach 144
-    assert STEP.next_feasible_cap(40, 129) == 144
-    assert STEP.escalate_cap(40, 128, 200) == 144
-    # doubling from 128 lands on 256 = max_feasible_cap(40)
-    assert STEP.escalate_cap(40, 128, 4096) == 256
+    assert escalate_cap(2, 512) == 4
+    assert escalate_cap(1, 512) == 2
+    assert escalate_cap(300, 512) == 512
+    assert escalate_cap(2, 3) == 3
+    assert escalate_cap(512, 512) is None
 
 
 def test_adaptive_falls_back_to_allpairs_when_ladder_ends():
-    from particle3d_tpu.engine.step import simulate_dense_adaptive
+    from particle3d.engine.step import simulate_dense_adaptive
 
     cfg = _cfg(cell_capacity=2).replace(
         interaction_force=4.0,
@@ -513,12 +493,12 @@ def test_adaptive_falls_back_to_allpairs_when_ladder_ends():
 
 
 def test_adaptive_reprobes_cell_path_after_dispersal():
-    """Bidirectional ladder (round 4): once on the culled fallback, the
+    """Bidirectional ladder: once on the all-pairs fallback, the
     driver re-probes the cell path every few windows; a dispersed scene
     that fits the capacity again (mask-free probe, faster wall time under
     the decreasing fake clock) re-enters the cell path — the engine-level
     mirror of the app's disperse recovery."""
-    from particle3d_tpu.engine.step import simulate_dense_adaptive
+    from particle3d.engine.step import simulate_dense_adaptive
 
     # zero forces: a crammed blob with strong outward velocities disperses
     # ballistically and deterministically

@@ -9,8 +9,8 @@ import numpy as np
 import jax
 import pytest
 
-from particle3d_tpu.app.headless import render_trajectory, save_gif
-from particle3d_tpu.models import make_scene
+from particle3d.app.headless import render_trajectory, save_gif
+from particle3d.models import make_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
@@ -18,7 +18,7 @@ ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
 
 def _cli(*args, timeout=240):
     return subprocess.run(
-        [sys.executable, "-m", "particle3d_tpu", *args],
+        [sys.executable, "-m", "particle3d", *args],
         capture_output=True, text=True, cwd=REPO, env=ENV, timeout=timeout)
 
 
@@ -71,7 +71,7 @@ def test_record_and_replay(tmp_path):
     r = _cli("run", "--preset", "reference", "--n", "64", "--steps", "24",
              "--snapshot-every", "4", "--record", traj)
     assert r.returncode == 0, r.stderr
-    from particle3d_tpu.utils.trajio import TrajectoryReader
+    from particle3d.utils.trajio import TrajectoryReader
 
     tr = TrajectoryReader(traj)
     assert tr.n == 64 and len(tr) == 6
@@ -94,7 +94,7 @@ def test_record_non_divisible_cadence(tmp_path):
     r = _cli("run", "--preset", "reference", "--n", "64", "--steps", "10",
              "--snapshot-every", "4", "--record", traj)
     assert r.returncode == 0, r.stderr
-    from particle3d_tpu.utils.trajio import TrajectoryReader
+    from particle3d.utils.trajio import TrajectoryReader
 
     tr = TrajectoryReader(traj)
     assert len(tr) == 3  # snapshots at steps 4, 8, 10

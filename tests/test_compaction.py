@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from particle3d_tpu.ops.compaction import masked_indices
+from particle3d.ops.compaction import masked_indices
 
 
 @pytest.mark.parametrize("s", [100, 4096, 5000, 8192, 131072])

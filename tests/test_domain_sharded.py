@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from particle3d_tpu import reference_config, init_scene
-from particle3d_tpu.engine.step import simulate_dense
-from particle3d_tpu.parallel import make_mesh
-from particle3d_tpu.parallel.domain_sharded import sharded_dense_simulate
+from particle3d import reference_config, init_scene
+from particle3d.engine.step import simulate_dense
+from particle3d.parallel import make_mesh
+from particle3d.parallel.domain_sharded import sharded_dense_simulate
 
 
 def _scene(n=512, seed=0, **repl):
@@ -46,7 +46,7 @@ def test_matches_dense_allpairs_ground_truth():
     mesh = make_mesh(4)
     dt = jnp.float32(1 / 30)
     out, _ = sharded_dense_simulate(st, cfg, dt, 8, mesh)
-    from particle3d_tpu import simulate
+    from particle3d import simulate
 
     ref = simulate(st, cfg.replace(neighbor="allpairs"), dt, 8)
     np.testing.assert_allclose(np.asarray(out.positions),
@@ -210,7 +210,7 @@ def test_fastpath_burst_takes_full_branch():
         st, cfg, dt, 4, mesh, mcap=1536)
     assert int(mx_mov) > 768    # exceeded half_m -> full branch ran
     assert int(mx_mask) == 0 and int(lost) == 0
-    from particle3d_tpu import simulate
+    from particle3d import simulate
 
     ref = simulate(st, cfg.replace(neighbor="allpairs"), dt, 4)
     np.testing.assert_allclose(np.asarray(out.positions),
@@ -283,7 +283,7 @@ def test_walled_slab_matches_brute_force():
     mesh = make_mesh(4)
     dt = jnp.float32(1 / 30)
     out, _ = sharded_dense_simulate(st, cfg, dt, 8, mesh)
-    from particle3d_tpu import simulate
+    from particle3d import simulate
 
     ref = simulate(st, cfg.replace(neighbor="allpairs"), dt, 8)
     np.testing.assert_allclose(np.asarray(out.positions),
@@ -298,7 +298,7 @@ def test_sharded_dense_adaptive_escalates_and_matches():
     at the final capacity. ocap=0 pins the ladder machinery itself (with
     the default sidecar this scene is served exactly at cap=4 and never
     escalates — test_slab_sidecar_serves_overflow_exactly)."""
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.parallel.domain_sharded import (
         build_sharded_dense, sharded_dense_adaptive, gather_sharded_dense)
 
     st, cfg = _scene(n=1200, seed=5, cell_capacity=4)
@@ -320,26 +320,12 @@ def test_sharded_dense_adaptive_escalates_and_matches():
                                rtol=1e-4, atol=1e-5)
 
 
-def test_vmem_infeasible_geometry_raises_before_compile():
-    """A halo-kernel geometry over the scoped-VMEM budget must raise the
-    calibrated-model error up front, not die minutes into a Mosaic compile.
-    Pinned to (40, 320) — a fresh-probe OOM of the slot-minor layout
-    (16.35 MB scoped vs the 16 MB limit; model: 19.1 MB > 15.2 budget).
-    The previous pin, (44, 96), was an OOM of the OLD padded receiver
-    layout and became genuinely feasible after the relayout."""
-    st, cfg = _scene(cell_grid=40, cell_capacity=320)
-    mesh = make_mesh(4)
-    with pytest.raises(ValueError, match="feasible"):
-        sharded_dense_simulate(st, cfg, jnp.float32(0.01), 2, mesh,
-                               interpret=False)
-
-
 def test_walled_config_on_ring_sharded():
     """Walls on the ring decomposition (the boundary-agnostic alternative
     to the walled slab path, USERGUIDE §6): a walled config must run
     sharded there and match the single-device trajectory."""
-    from particle3d_tpu.parallel import shard_state, sharded_simulate
-    from particle3d_tpu.engine.step import simulate
+    from particle3d.parallel import shard_state, sharded_simulate
+    from particle3d.engine.step import simulate
 
     cfg = reference_config(world_size=16.0).replace(
         boundary="clamp", wrap_forces=False)
@@ -358,7 +344,7 @@ def test_walled_config_on_ring_sharded():
 def test_stay_sharded_carry_matches_single_call():
     """build + two step windows + gather == one sharded_dense_simulate call,
     with the carry actually sharded over the mesh axis."""
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.parallel.domain_sharded import (
         build_sharded_dense, sharded_dense_steps, gather_sharded_dense)
     from jax.sharding import PartitionSpec as P
 
@@ -389,10 +375,10 @@ def test_stay_sharded_carry_matches_single_call():
 def test_init_sharded_dense_no_replicated_stage():
     """Per-device scene init straight into the sharded carry: globally
     unique pids, every occupant in its own slab, steppable and gatherable."""
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.parallel.domain_sharded import (
         init_sharded_dense, sharded_dense_steps, gather_sharded_dense)
-    from particle3d_tpu.ops.celllist_dense import bin_sid
-    from particle3d_tpu.state import ParticleState
+    from particle3d.ops.celllist_dense import bin_sid
+    from particle3d.state import ParticleState
 
     cfg = reference_config(world_size=16.0).replace(
         neighbor="celllist_pallas", cell_grid=8, cell_capacity=32)
@@ -450,8 +436,8 @@ def test_sharded_exact_steps_matches_allpairs_then_relayout_reenters():
     window on the stay-sharded carry must match the brute-force ground
     truth; relayout passes then repair the drifted layout (pure transport)
     so the grid path continues bit-tolerantly."""
-    from particle3d_tpu import simulate
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d import simulate
+    from particle3d.parallel.domain_sharded import (
         build_sharded_dense, sharded_exact_steps, sharded_relayout,
         sharded_dense_steps, gather_sharded_dense)
 
@@ -487,7 +473,7 @@ def test_sharded_exact_rung_is_onl_over_d():
     """VERDICT r4 item 2's done bar: the exact rung's program must be
     O(N/D) — ring ppermutes, NO all_gather of state anywhere in the
     jaxpr (the round-4 rung gathered the full state to every device)."""
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.parallel.domain_sharded import (
         build_sharded_dense, sharded_exact_steps)
 
     st, cfg = _scene()
@@ -505,8 +491,8 @@ def test_sharded_ladder_end_exact_terminal_rung():
     NOT commit force-frozen windows — the default terminal rung gathers and
     serves the window on the capacity-free exact backend, matching the
     single-device adaptive driver's trajectory."""
-    from particle3d_tpu.engine.step import simulate_dense_adaptive
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.engine.step import simulate_dense_adaptive
+    from particle3d.parallel.domain_sharded import (
         build_sharded_dense, sharded_dense_adaptive, gather_sharded_dense)
 
     st, cfg = _blob_scene(cell_capacity=4)
@@ -533,9 +519,9 @@ def test_sharded_exact_rung_reenters_slab_after_dispersal():
     """The exact rung re-probes the slab path each window: once the blob
     disperses below the capacity, the driver re-enters sharded mode (later
     history windows carry a numeric cap again)."""
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.parallel.domain_sharded import (
         build_sharded_dense, sharded_dense_adaptive, gather_sharded_dense)
-    from particle3d_tpu import simulate
+    from particle3d import simulate
 
     zeros = np.zeros((5, 5), np.float32)
     st, cfg = _blob_scene(n=288, crowd=24, cell_capacity=8, speed=8.0)
@@ -570,7 +556,7 @@ def test_slab_sidecar_midstep_fresh_non_euler(integrator):
     st, cfg = _scene(n=1200, seed=5, cell_capacity=4, integrator=integrator)
     mesh = make_mesh(4)
     dt = jnp.float32(1 / 30)
-    from particle3d_tpu import simulate
+    from particle3d import simulate
 
     ref = simulate(st, cfg.replace(neighbor="allpairs"), dt, 8)
     out, (_, mask_s, limbo_s, lost, _) = sharded_dense_simulate(
@@ -592,7 +578,7 @@ def test_relayout_guard_never_loses_rows():
     ``lost`` diagnostic and re-entered the grid path as if repair
     succeeded — 385 of 400 drifted rows silently vanished). The guarded
     repair must rewind, grow limbocap, and deliver every row."""
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.parallel.domain_sharded import (
         build_sharded_dense, gather_sharded_dense, sharded_relayout,
         _relayout_guarded)
 

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import SimConfig, reference_config, from_numpy
-from particle3d_tpu.ops import forces as F
-from particle3d_tpu.ops.allpairs import allpairs_forces
-from particle3d_tpu import oracle
+from particle3d import SimConfig, reference_config, from_numpy
+from particle3d.ops import forces as F
+from particle3d.ops.allpairs import allpairs_forces
+from particle3d import oracle
 
 
 def test_particle_life_magnitude_matches_rust_branches():

@@ -7,8 +7,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from particle3d_tpu import SimConfig, init_scene, simulate
-from particle3d_tpu.engine.step import warmup, simulate_dense
+from particle3d import SimConfig, init_scene, simulate
+from particle3d.engine.step import warmup, simulate_dense
 
 
 _LAWS = ["particle_life", "lennard_jones", "gravity", "spring"]
@@ -67,19 +67,18 @@ def test_backends_agree_on_random_config(case):
                                ref_pos / scale, atol=5e-4,
                                err_msg=f"pallas vs dense: {cfg}")
 
-    # the adaptive driver's fallback backend (Morton-culled triangular)
-    out = simulate(st, cfg.replace(neighbor="allpairs_culled"), dt, steps)
-    np.testing.assert_allclose(np.asarray(out.positions) / scale,
-                               ref_pos / scale, atol=5e-4,
-                               err_msg=f"culled vs dense: {cfg}")
+    # the all-pairs kernel itself (Pallas interpreter) on the same config
+    from particle3d.ops import forces as F
+    from particle3d.ops.allpairs import allpairs_forces
+    from particle3d.ops.pallas_allpairs import pallas_allpairs_forces
 
-    # the stay-sorted worklist driver built on the same culling contract
-    from particle3d_tpu.engine.step import simulate_culled
-
-    out, _ = simulate_culled(st, cfg, dt, steps, window=3, t=64)
-    np.testing.assert_allclose(np.asarray(out.positions) / scale,
-                               ref_pos / scale, atol=5e-4,
-                               err_msg=f"simulate_culled vs dense: {cfg}")
+    u, v = F.pair_features(st, cfg)
+    want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg,
+                                            interpret=True))
+    fscale = max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(got / fscale, want / fscale, atol=5e-4,
+                               err_msg=f"kernel vs dense forces: {cfg}")
 
     # cell geometry valid for the law's effective cutoff (the cell backends
     # need static geometry inside jit when the config is traced)

@@ -7,8 +7,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from particle3d_tpu import reference_config, init_scene, simulate
-from particle3d_tpu.parallel import (
+from particle3d import reference_config, init_scene, simulate
+from particle3d.parallel import (
     mesh_shape_2level, auto_mesh_2d, cluster_env_configured,
     initialize_distributed, shard_state_2level, sharded_simulate_2level,
 )
@@ -38,9 +38,7 @@ def test_cluster_env_detection():
     assert not cluster_env_configured({})
     assert cluster_env_configured({"JAX_COORDINATOR_ADDRESS": "host:1234"})
     assert cluster_env_configured({"SLURM_JOB_ID": "17"})
-    # a single-host TPU VM sets a one-entry worker list: not a cluster
-    assert not cluster_env_configured({"TPU_WORKER_HOSTNAMES": "localhost"})
-    assert cluster_env_configured({"TPU_WORKER_HOSTNAMES": "h0,h1,h2,h3"})
+    assert not cluster_env_configured({"SLURM_JOB_ID": ""})
 
 
 def test_initialize_distributed_single_process_noop():

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from particle3d_tpu import SimConfig, init_scene
-from particle3d_tpu.engine.step import step
+from particle3d import SimConfig, init_scene
+from particle3d.engine.step import step
 
 
 def test_recover_attraction_matrix():

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from particle3d_tpu import reference_config, from_numpy, step, simulate
-from particle3d_tpu import oracle
-from particle3d_tpu import native
+from particle3d import reference_config, from_numpy, step, simulate
+from particle3d import oracle
+from particle3d import native
 
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -55,7 +55,7 @@ def test_native_is_deterministic():
 
 def test_jax_trajectory_matches_native_at_1k():
     """The BASELINE parity anchor: N=1000 (reference demo scale), many steps,
-    JAX TPU-path semantics vs the native reference-exact engine."""
+    JAX-path semantics vs the native reference-exact engine."""
     cfg = reference_config()
     pos, vel, species = _scene(3, 1000, cfg)
     st = from_numpy(pos, vel, species)

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 
 pytest.importorskip("orbax.checkpoint")
 
-from particle3d_tpu import reference_config, init_scene, simulate
-from particle3d_tpu.utils.orbax_ckpt import OrbaxCheckpointer
+from particle3d import reference_config, init_scene, simulate
+from particle3d.utils.orbax_ckpt import OrbaxCheckpointer
 
 
 def _scene(n=128):
@@ -61,7 +61,7 @@ def test_async_save_and_steps(tmp_path):
 
 
 def test_sharded_restore(tmp_path):
-    from particle3d_tpu.parallel import make_mesh, particle_sharding
+    from particle3d.parallel import make_mesh, particle_sharding
 
     st, cfg = _scene(n=128)
     ck = OrbaxCheckpointer(str(tmp_path / "ck"))
@@ -109,8 +109,8 @@ def test_slab_carry_checkpoint_resume(tmp_path):
     the uninterrupted run bit-for-bit, and the restored arrays must carry
     the slab sharding."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from particle3d_tpu.parallel import make_mesh
-    from particle3d_tpu.parallel.domain_sharded import (
+    from particle3d.parallel import make_mesh
+    from particle3d.parallel.domain_sharded import (
         init_sharded_dense, sharded_dense_steps, gather_sharded_dense)
 
     cfg = reference_config(world_size=16.0).replace(

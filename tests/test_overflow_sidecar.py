@@ -9,13 +9,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from particle3d_tpu import reference_config, init_scene, simulate
-from particle3d_tpu.config import SimConfig
-from particle3d_tpu.engine.step import simulate_dense, warmup
-from particle3d_tpu.ops import forces as F
-from particle3d_tpu.ops.celllist_dense import (
+from particle3d import reference_config, init_scene, simulate
+from particle3d.config import SimConfig
+from particle3d.engine.step import simulate_dense, warmup
+from particle3d.ops import forces as F
+from particle3d.ops.celllist_dense import (
     OCAP, build_dense, rebind, sidecar_indices, default_mover_capacity)
-from particle3d_tpu.ops.overflow import rect_forces
+from particle3d.ops.overflow import rect_forces
 
 
 def _cfg(**kw):
@@ -27,7 +27,7 @@ def _cfg(**kw):
 def test_rect_forces_matches_allpairs_square():
     """Square case (sources == receivers, all valid) must reproduce the XLA
     all-pairs backend bit-for-bit-ish (same math, different blocking)."""
-    from particle3d_tpu.ops.allpairs import allpairs_forces
+    from particle3d.ops.allpairs import allpairs_forces
 
     cfg = _cfg()
     st = init_scene(jax.random.PRNGKey(0), 300, cfg)
@@ -156,8 +156,8 @@ def test_fresh_path_sidecar_exact_vs_allpairs():
     """pallas_celllist_forces (fresh per-step build) must serve capacity-
     overflow particles exactly via the sidecar — not drop them force-dead
     (round 4: mean-occupancy preset geometries overflow by design)."""
-    from particle3d_tpu.ops.allpairs import allpairs_forces
-    from particle3d_tpu.ops.pallas_celllist import pallas_celllist_forces
+    from particle3d.ops.allpairs import allpairs_forces
+    from particle3d.ops.pallas_celllist import pallas_celllist_forces
 
     cfg = _cfg(cell_capacity=4)
     st = _overflow_scene(jax.random.PRNGKey(8), 400, cfg, crowd=10)
@@ -171,8 +171,8 @@ def test_fresh_path_sidecar_exact_vs_allpairs():
 def test_fresh_path_sidecar_disabled_drops():
     """With overflow_capacity=0 the fresh path keeps its old semantics:
     overflow rows ride force-dead (callers watch the dropped count)."""
-    from particle3d_tpu.ops.allpairs import allpairs_forces
-    from particle3d_tpu.ops.pallas_celllist import pallas_celllist_forces
+    from particle3d.ops.allpairs import allpairs_forces
+    from particle3d.ops.pallas_celllist import pallas_celllist_forces
 
     cfg = _cfg(cell_capacity=4).replace(overflow_capacity=0)
     st = _overflow_scene(jax.random.PRNGKey(8), 400, cfg, crowd=10)
@@ -187,8 +187,8 @@ def test_cadenced_wrap_crosser_stays_exact():
     wrap-crosses the box INSIDE a cadence window (stale layout) must keep
     exact near-boundary forces — fold_to_cells restores its cell-local
     image. Velocities push a boundary blob across z/x mid-window."""
-    from particle3d_tpu import simulate
-    from particle3d_tpu.engine.step import simulate_cadenced
+    from particle3d import simulate
+    from particle3d.engine.step import simulate_cadenced
 
     cfg = _cfg(cell_capacity=8)
     st = init_scene(jax.random.PRNGKey(9), 500, cfg)

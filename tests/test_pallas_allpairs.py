@@ -1,14 +1,12 @@
-"""Pallas all-pairs kernel vs the dense jnp path (interpreter mode on CPU)."""
+"""All-pairs kernel (Pallas interpreter on the CPU) vs the dense jnp path."""
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import SimConfig, reference_config, from_numpy, init_scene
-from particle3d_tpu.ops import forces as F
-from particle3d_tpu.ops.allpairs import allpairs_forces
-from particle3d_tpu.ops.pallas_allpairs import pallas_allpairs_forces
+from particle3d import SimConfig, reference_config, from_numpy
+from particle3d.ops import forces as F
+from particle3d.ops.allpairs import allpairs_forces
+from particle3d.ops.pallas_allpairs import pallas_allpairs_forces
 
 
 def _scene(seed, n, cfg, with_vel=False, k=5):
@@ -26,7 +24,8 @@ def test_pallas_matches_dense_particle_life(n):
     st = _scene(n, n, cfg)
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg,
+                                             interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
@@ -35,7 +34,8 @@ def test_pallas_matches_dense_no_wrap():
     st = _scene(7, 200, cfg)
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg,
+                                             interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
@@ -55,7 +55,8 @@ def test_pallas_matches_dense_gravity():
                     masses=rng.uniform(0.5, 2.0, n).astype(np.float32))
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg,
+                                             interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
@@ -72,26 +73,28 @@ def test_pallas_matches_dense_lennard_jones():
     st = from_numpy(pos, np.zeros_like(pos), np.zeros(n, np.int32))
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg,
+                                             interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
 def test_pallas_multi_jblock_accumulation():
-    """Force the grid to iterate >1 outer source block and >1 subtile."""
+    """Several receiver programs and several inner source blocks."""
     cfg = reference_config()
     n = 600
     st = _scene(13, n, cfg)
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
     got = np.asarray(
-        pallas_allpairs_forces(st.positions, u, v, cfg, ti=64, tj=128, subtiles=2)
+        pallas_allpairs_forces(st.positions, u, v, cfg, bi=64, bj=128,
+                               interpret=True)
     )
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
 def test_pallas_backend_in_step():
     """End-to-end: step() with neighbor='allpairs_pallas' matches 'allpairs'."""
-    from particle3d_tpu import step
+    from particle3d import step
 
     cfg = reference_config()
     cfg_p = cfg.replace(neighbor="allpairs_pallas")
@@ -105,21 +108,18 @@ def test_pallas_backend_in_step():
 
 @pytest.mark.parametrize("n", [64, 200, 300])
 def test_triangular_matches_dense_particle_life(n):
-    from particle3d_tpu.ops.pallas_allpairs import pallas_allpairs_forces_tri
-
     cfg = reference_config()
     st = _scene(n, n, cfg)
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg, t=64))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg, bi=32,
+                                             bj=64, interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
 def test_triangular_matches_dense_gravity_asymmetric():
-    """Gravity coef is asymmetric (m_j vs m_i) — exercises the two-direction
-    coefficient matmuls."""
-    from particle3d_tpu.ops.pallas_allpairs import pallas_allpairs_forces_tri
-
+    """Gravity coef is asymmetric (m_j vs m_i): each receiver must weight
+    every source by the SOURCE's mass."""
     cfg = SimConfig(
         force_law="gravity", gravity_constant=1.5, gravity_softening=0.3,
         particle_effect_radius=4.0, world_size=20.0, wrap_forces=True,
@@ -132,13 +132,12 @@ def test_triangular_matches_dense_gravity_asymmetric():
                     masses=rng.uniform(0.5, 2.0, n).astype(np.float32))
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg, t=64))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg, bi=32,
+                                             bj=64, interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
 def test_triangular_matches_dense_lj_nowrap():
-    from particle3d_tpu.ops.pallas_allpairs import pallas_allpairs_forces_tri
-
     cfg = SimConfig(
         force_law="lennard_jones", lj_epsilon=1.0, lj_sigma=0.3,
         particle_effect_radius=1.5, world_size=12.0, wrap_forces=False,
@@ -149,26 +148,26 @@ def test_triangular_matches_dense_lj_nowrap():
     st = from_numpy(pos, np.zeros_like(pos), np.zeros(len(pos), np.int32))
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg, t=64))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg, bi=32,
+                                             bj=64, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,t", [(128, 64), (96, 48), (260, 64)])
+@pytest.mark.parametrize("n,t", [(128, 64), (96, 32), (260, 64)])
 def test_triangular_tile_count_edges(n, t):
-    """nt=2 exercises the even-nt half-diagonal mask; odd nt and ragged
-    padding exercise the modular tile pairing."""
-    from particle3d_tpu.ops.pallas_allpairs import pallas_allpairs_forces_tri
-
+    """Exact multiples of the block and ragged tails: padded receivers are
+    sliced off, padded sources are killed by the r2 row."""
     cfg = reference_config()
     st = _scene(n + t, n, cfg)
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg, t=t))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg, bi=t,
+                                             bj=t, interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
 def test_many_species_wide_features():
-    """id_count > PAIR_P: the coefficient matmul runs at P=12 unpadded."""
+    """id_count > PAIR_P: the coefficient FMAs run over P=12 features."""
     cfg = SimConfig(id_count=12, world_size=10.0).validate()
     rng = np.random.default_rng(77)
     m = rng.uniform(-1, 1, (12, 12)).astype(np.float32)
@@ -179,249 +178,9 @@ def test_many_species_wide_features():
     st = from_numpy(pos, np.zeros((n, 3), np.float32), species)
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg))
+    got = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg,
+                                             interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
-    from particle3d_tpu.ops.pallas_allpairs import pallas_allpairs_forces_tri
-
-    got_t = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg, t=64))
+    got_t = np.asarray(pallas_allpairs_forces(st.positions, u, v, cfg,
+                                               bi=32, bj=64, interpret=True))
     np.testing.assert_allclose(got_t, want, rtol=3e-4, atol=3e-5)
-
-
-class TestCulledBackend:
-    """Morton-sorted bounding-sphere-culled triangular kernel: must equal
-    the dense triangular sweep exactly wherever culling actually fires."""
-
-    def _cfg(self, **kw):
-        cfg = reference_config(world_size=16.0)
-        return cfg.replace(**kw) if kw else cfg
-
-    def test_matches_tri_uniform(self):
-        from particle3d_tpu.ops.pallas_allpairs import (
-            pallas_allpairs_forces_tri, pallas_allpairs_forces_culled)
-
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(40), 2048, cfg)
-        u, v = F.pair_features(st, cfg)
-        a = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg))
-        b, frac = pallas_allpairs_forces_culled(
-            st.positions, u, v, cfg, with_stats=True, t=128)
-        scale = float(np.max(np.abs(a)))
-        assert float(np.max(np.abs(a - np.asarray(b)))) / scale < 1e-5
-
-    def test_matches_tri_clustered_with_active_culling(self):
-        from particle3d_tpu.ops.pallas_allpairs import (
-            pallas_allpairs_forces_tri, pallas_allpairs_forces_culled)
-
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(41), 2048, cfg)
-        pos = np.array(st.positions)
-        pos[:1024] = pos[:1024] * 0.05 + 3.0  # dense blob + diffuse rest
-        st = st.replace(positions=jnp.asarray(pos))
-        u, v = F.pair_features(st, cfg)
-        a = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg))
-        b, frac = pallas_allpairs_forces_culled(
-            st.positions, u, v, cfg, with_stats=True, t=128)
-        assert float(frac) < 1.0  # culling really fired
-        scale = float(np.max(np.abs(a)))
-        assert float(np.max(np.abs(a - np.asarray(b)))) / scale < 1e-5
-
-    def test_matches_tri_no_wrap(self):
-        from particle3d_tpu.ops.pallas_allpairs import (
-            pallas_allpairs_forces_tri, pallas_allpairs_forces_culled)
-
-        cfg = self._cfg(wrap_forces=False, boundary="clamp")
-        st = init_scene(jax.random.PRNGKey(42), 1500, cfg)
-        u, v = F.pair_features(st, cfg)
-        a = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg))
-        b, frac = pallas_allpairs_forces_culled(
-            st.positions, u, v, cfg, with_stats=True, t=64)
-        assert float(frac) < 1.0
-        scale = float(np.max(np.abs(a)))
-        assert float(np.max(np.abs(a - np.asarray(b)))) / scale < 1e-5
-
-    def test_backend_in_step(self):
-        from particle3d_tpu.engine.step import step
-
-        cfg = self._cfg().replace(neighbor="allpairs_culled")
-        st = init_scene(jax.random.PRNGKey(43), 512, cfg)
-        a = step(st, cfg, 1.0 / 60.0)
-        b = step(st, cfg.replace(neighbor="allpairs"), 1.0 / 60.0)
-        np.testing.assert_allclose(np.asarray(a.positions),
-                                   np.asarray(b.positions),
-                                   rtol=1e-4, atol=1e-6)
-
-    def test_morton_locality(self):
-        from particle3d_tpu.ops.pallas_allpairs import morton_keys
-
-        pos = jnp.asarray([[0.0, 0.0, 0.0], [0.1, 0.1, 0.1],
-                           [7.0, 7.0, 7.0]], jnp.float32)
-        k = np.asarray(morton_keys(pos, 16.0))
-        assert abs(int(k[0]) - int(k[1])) < abs(int(k[0]) - int(k[2]))
-        assert (k >= 0).all()
-
-
-class TestPairlistBackend:
-    """Worklist-driven (scalar-prefetched) culled kernel + the stay-sorted
-    window driver simulate_culled: O(survivors) exact fallback."""
-
-    def _cfg(self, **kw):
-        cfg = reference_config(world_size=16.0)
-        return cfg.replace(**kw) if kw else cfg
-
-    def _pairlist_forces(self, st, cfg, t, skin=0.0):
-        from particle3d_tpu.ops.pallas_allpairs import (
-            _pad_rows, _round_to, morton_keys, pair_survival_mask,
-            build_pair_worklist, pallas_allpairs_forces_pairlist)
-
-        u, v = F.pair_features(st, cfg)
-        order = jnp.argsort(morton_keys(st.positions, cfg.world_size))
-        ps, us, vs = st.positions[order], u[order], v[order]
-        n = st.n
-        np_ = _round_to(n, t)
-        nt = np_ // t
-        mask = pair_survival_mask(
-            _pad_rows(ps.astype(jnp.float32), np_), n, t, nt, cfg,
-            jnp.float32(skin))
-        chunks, count = build_pair_worklist(np.asarray(mask), nt, quantum=64)
-        f = pallas_allpairs_forces_pairlist(ps, us, vs, cfg, chunks, t=t)
-        return np.asarray(jnp.zeros_like(f).at[order].set(f)), count, nt
-
-    def test_matches_tri_uniform(self):
-        from particle3d_tpu.ops.pallas_allpairs import (
-            pallas_allpairs_forces_tri)
-
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(50), 2048, cfg)
-        u, v = F.pair_features(st, cfg)
-        a = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg))
-        b, count, nt = self._pairlist_forces(st, cfg, t=128)
-        assert count < nt * (nt + 1) // 2  # culling fired
-        scale = float(np.max(np.abs(a)))
-        assert float(np.max(np.abs(a - b))) / scale < 1e-5
-
-    def test_matches_tri_clustered(self):
-        from particle3d_tpu.ops.pallas_allpairs import (
-            pallas_allpairs_forces_tri)
-
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(51), 2048, cfg)
-        pos = np.array(st.positions)
-        pos[:1024] = pos[:1024] * 0.05 + 3.0
-        st = st.replace(positions=jnp.asarray(pos))
-        u, v = F.pair_features(st, cfg)
-        a = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg))
-        b, count, nt = self._pairlist_forces(st, cfg, t=128)
-        scale = float(np.max(np.abs(a)))
-        assert float(np.max(np.abs(a - b))) / scale < 1e-5
-
-    def test_matches_tri_no_wrap(self):
-        from particle3d_tpu.ops.pallas_allpairs import (
-            pallas_allpairs_forces_tri)
-
-        cfg = self._cfg(wrap_forces=False, boundary="clamp")
-        st = init_scene(jax.random.PRNGKey(52), 1500, cfg)
-        u, v = F.pair_features(st, cfg)
-        a = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg))
-        b, count, nt = self._pairlist_forces(st, cfg, t=64)
-        scale = float(np.max(np.abs(a)))
-        assert float(np.max(np.abs(a - b))) / scale < 1e-5
-
-    def test_skin_admits_only_zero_pairs(self):
-        """A skin inflates the worklist but must not change the forces
-        (the in-kernel gate stays at the true cutoff)."""
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(53), 1024, cfg)
-        a, count_a, _ = self._pairlist_forces(st, cfg, t=64, skin=0.0)
-        b, count_b, _ = self._pairlist_forces(st, cfg, t=64, skin=2.0)
-        assert count_b > count_a
-        np.testing.assert_array_equal(a, b)
-
-    def test_multichunk_matches_single(self):
-        import particle3d_tpu.ops.pallas_allpairs as PA
-
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(54), 1024, cfg)
-        a, _, _ = self._pairlist_forces(st, cfg, t=64)
-        old = PA._WLIST_MAX
-        PA._WLIST_MAX = 48
-        try:
-            b, _, _ = self._pairlist_forces(st, cfg, t=64)
-        finally:
-            PA._WLIST_MAX = old
-        np.testing.assert_array_equal(a, b)
-
-    def test_tile_bounds_min_image_seam(self):
-        """A tile whose members straddle the periodic seam folds back to a
-        tight bounding sphere (a raw-coordinate box would span the world
-        and the tile would survive against everyone — measured ~3x pair
-        inflation, docs/PERF.md); a tile genuinely spread wider than w/2
-        is marked uncullable instead of getting a wrong 'tight' bound."""
-        from particle3d_tpu.ops.pallas_allpairs import tile_bounds
-
-        cfg = self._cfg()  # world 16, periodic
-        w, t = 16.0, 8
-        jit = 0.1 * jax.random.normal(jax.random.PRNGKey(60), (t, 3))
-        pos0 = jnp.asarray([7.9, 0.0, 0.0]) + jit       # cluster at +x seam
-        pos0 = pos0.at[:, 0].set(                        # half wrapped to -x
-            jnp.where(pos0[:, 0] > 8.0, pos0[:, 0] - w, pos0[:, 0]))
-        pos1 = jnp.zeros((t, 3)).at[1, 0].set(7.0).at[2, 0].set(-7.0)
-        centers, radii = tile_bounds(
-            jnp.concatenate([pos0, pos1]), 2 * t, t, cfg)
-        assert float(radii[0]) < 1.0       # folded tight despite the seam
-        assert float(radii[1]) > 1e29      # genuinely spread: uncullable
-
-    def test_matches_tri_seam_cluster(self):
-        """Forces stay exact when half the particles cluster ON the seam
-        (the regime the raw-box bound mis-sized)."""
-        from particle3d_tpu.ops.pallas_allpairs import (
-            pallas_allpairs_forces_tri)
-
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(61), 2048, cfg)
-        pos = np.array(st.positions)
-        pos[:1024] = pos[:1024] * 0.05 + 7.95        # hugs the +x/y/z corner
-        pos[pos > 8.0] -= 16.0                       # wrapped representative
-        st = st.replace(positions=jnp.asarray(pos))
-        u, v = F.pair_features(st, cfg)
-        a = np.asarray(pallas_allpairs_forces_tri(st.positions, u, v, cfg))
-        b, count, nt = self._pairlist_forces(st, cfg, t=128)
-        scale = float(np.max(np.abs(a)))
-        assert float(np.max(np.abs(a - b))) / scale < 1e-5
-
-    def test_simulate_culled_matches_allpairs(self):
-        from particle3d_tpu.engine.step import simulate, simulate_culled
-
-        cfg = self._cfg()
-        st = init_scene(jax.random.PRNGKey(55), 512, cfg)
-        dt = jnp.float32(1 / 60)
-        ref = simulate(st, cfg.replace(neighbor="allpairs"), dt, 12)
-        out, stats = simulate_culled(st, cfg, dt, 12, window=5, t=64)
-        assert stats["windows"] == 3  # 5 + 5 + 2 (remainder window)
-        # particle order restored: species alignment intact
-        np.testing.assert_array_equal(np.asarray(out.species),
-                                      np.asarray(st.species))
-        scale = max(1.0, float(np.max(np.abs(np.asarray(ref.positions)))))
-        np.testing.assert_allclose(np.asarray(out.positions) / scale,
-                                   np.asarray(ref.positions) / scale,
-                                   atol=5e-5)
-
-    def test_simulate_culled_rewinds_on_drift(self):
-        """A scene moving faster than the initial skin estimate must trip
-        the drift check, rewind, and still end exact."""
-        from particle3d_tpu.engine.step import simulate, simulate_culled
-
-        cfg = self._cfg(interaction_force=6.0)
-        st = init_scene(jax.random.PRNGKey(56), 256, cfg)
-        # hot start: large random velocities invalidate a zero-skin guess
-        kv = jax.random.PRNGKey(57)
-        st = st.replace(velocities=4.0 * jax.random.normal(
-            kv, (256, 3), jnp.float32))
-        dt = jnp.float32(1 / 30)
-        msgs = []
-        ref = simulate(st, cfg.replace(neighbor="allpairs"), dt, 8)
-        out, stats = simulate_culled(st, cfg, dt, 8, window=8, t=64,
-                                     verbose=msgs.append)
-        scale = max(1.0, float(np.max(np.abs(np.asarray(ref.positions)))))
-        np.testing.assert_allclose(np.asarray(out.positions) / scale,
-                                   np.asarray(ref.positions) / scale,
-                                   atol=5e-5)

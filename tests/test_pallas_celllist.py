@@ -1,14 +1,15 @@
-"""Column-sweep Pallas cell-list kernel vs the dense all-pairs path."""
+"""Column-sweep cell-list kernel (Pallas interpreter on the CPU) and its
+plain twin vs the dense all-pairs path."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import SimConfig, reference_config, from_numpy
-from particle3d_tpu.ops import forces as F
-from particle3d_tpu.ops.allpairs import allpairs_forces
-from particle3d_tpu.ops.pallas_celllist import pallas_celllist_forces, prepare_columns
+from particle3d import SimConfig, reference_config, from_numpy
+from particle3d.ops import forces as F
+from particle3d.ops.allpairs import allpairs_forces
+from particle3d.ops.pallas_celllist import pallas_celllist_forces, prepare_columns
 
 
 def _scene(seed, n, cfg):
@@ -38,7 +39,8 @@ def test_matches_allpairs_particle_life_wrap(nsc, n, world):
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
     got = np.asarray(pallas_celllist_forces(st.positions, u, v, cfg,
-                                            nsc=nsc, cap=96))
+                                            nsc=nsc, cap=96,
+                                            interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
@@ -48,7 +50,8 @@ def test_matches_allpairs_no_wrap():
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
     got = np.asarray(pallas_celllist_forces(st.positions, u, v, cfg,
-                                            nsc=4, cap=96))
+                                            nsc=4, cap=96,
+                                            interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
@@ -64,7 +67,8 @@ def test_matches_allpairs_lj():
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
     got = np.asarray(pallas_celllist_forces(st.positions, u, v, cfg,
-                                            nsc=6, cap=32))
+                                            nsc=6, cap=32,
+                                            interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
@@ -83,12 +87,13 @@ def test_matches_allpairs_gravity():
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
     got = np.asarray(pallas_celllist_forces(st.positions, u, v, cfg,
-                                            nsc=6, cap=32))
+                                            nsc=6, cap=32,
+                                            interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
 
 
 def test_backend_in_step():
-    from particle3d_tpu import step
+    from particle3d import step
 
     cfg = reference_config().replace(world_size=12.0)
     cfg_p = cfg.replace(neighbor="celllist_pallas", cell_grid=4,
@@ -102,9 +107,9 @@ def test_backend_in_step():
 
 def test_cadenced_rebuild_matches_per_step():
     """Layout reuse between rebuilds is exact while drift < budget."""
-    from particle3d_tpu.models import make_scene
-    from particle3d_tpu.engine.step import simulate, simulate_cadenced, warmup
-    from particle3d_tpu.ops.pallas_celllist import drift_budget
+    from particle3d.models import make_scene
+    from particle3d.engine.step import simulate, simulate_cadenced, warmup
+    from particle3d.ops.pallas_celllist import drift_budget
 
     st, cfg, dt = make_scene("lj_gas", n=512)
     cfgp = cfg.replace(neighbor="celllist_pallas", cell_grid=8,
@@ -118,27 +123,14 @@ def test_cadenced_rebuild_matches_per_step():
         np.asarray(a.positions), np.asarray(b.positions), atol=1e-6)
 
 
-def test_pick_zr2_properties():
-    """zr2 must divide zr, keep receiver rows 8-sublane aligned, and match
-    the measured optimum for the production geometry (zr=8, cap=16 -> 2)."""
-    from particle3d_tpu.ops.pallas_celllist import _pick_zr, _pick_zr2
-
-    assert _pick_zr2(8, 16) == 2
-    for nsc, cap in ((8, 32), (16, 16), (40, 16), (64, 16), (12, 8)):
-        zr = _pick_zr(nsc, cap)
-        zr2 = _pick_zr2(zr, cap)
-        assert 1 <= zr2 <= zr and zr % zr2 == 0
-        assert (zr2 * cap) % 8 == 0
-
-
-@pytest.mark.parametrize("zr2", [1, 2, 4])
-def test_sub_chunked_kernel_matches_occupied(zr2):
-    """Every z sub-chunk size gives the same forces on OCCUPIED slots (the
-    phantom/empty-slot rows are garbage by design and must be masked in any
-    cross-implementation comparison)."""
-    from particle3d_tpu.ops.pallas_celllist import prepare_columns, _call
-    from particle3d_tpu.ops.pallas_allpairs import pack_params
-    from particle3d_tpu.ops import forces as F
+@pytest.mark.parametrize("br", [32, 64, 128])
+def test_sub_chunked_kernel_matches_occupied(br):
+    """Every receiver block size gives the plain twin's forces on OCCUPIED
+    slots (the phantom/empty-slot rows are garbage by design and must be
+    masked in any cross-implementation comparison)."""
+    from particle3d.ops.pallas_celllist import (
+        prepare_columns, _call_kernel, _call_plain)
+    from particle3d.ops.pallas_allpairs import pack_params
 
     nsc, cap = 8, 16
     cfg = reference_config(world_size=16.0).replace(
@@ -149,45 +141,25 @@ def test_sub_chunked_kernel_matches_occupied(zr2):
         st.positions, u, v, cfg, nsc, cap)
     pf = pack_params(cfg)
     occ = np.asarray(sp) >= 0
-    # _call output is slot-minor [NCOL, 3, CS]; transpose for the occ mask
-    ref = np.transpose(np.asarray(_call(
-        pos_d, u_d, post_g, vt_g, r2_g, pf,
-        cfg.force_law, True, nsc, cap, True, zr2=None)), (0, 2, 1))
-    out = np.transpose(np.asarray(_call(
-        pos_d, u_d, post_g, vt_g, r2_g, pf,
-        cfg.force_law, True, nsc, cap, True, zr2=zr2)), (0, 2, 1))
+    # slot-minor [NCOL, 3, CS]; transpose for the occ mask
+    ref = np.transpose(np.asarray(_call_plain(
+        pos_d, u_d, post_g, vt_g, r2_g, pf, cfg.force_law, True, nsc, cap,
+        False, 5)), (0, 2, 1))
+    out = np.transpose(np.asarray(_call_kernel(
+        pos_d, u_d, post_g, vt_g, r2_g, pf, cfg.force_law, True, nsc, cap,
+        False, 5, br, 64, True)), (0, 2, 1))
     scale = max(1e-9, float(np.max(np.abs(ref[occ]))))
     assert float(np.max(np.abs(out[occ] - ref[occ]))) / scale < 1e-5
 
 
-def test_unrolled_misaligned_cap_matches_allpairs(monkeypatch):
-    """The unrolled z loop (static chunk offsets, round 4) frees `cap` from
-    the 128-lane alignment rule on real TPUs. Interpret mode never takes
-    that branch on its own (alignment is waived there), so force it: make
-    the aligned _pick_zr attempt fail the way a misaligned cap does on
-    hardware and check the unrolled kernel against dense all-pairs."""
-    import particle3d_tpu.ops.pallas_celllist as PC
-
-    real_pick = PC._pick_zr
-    calls = []
-
-    def pick(nsc, cap, require_aligned=False):
-        # _call's TRY (first call per kernel build) must fail so its
-        # except-branch re-derives zr and sets unroll=True; the re-derive
-        # (second call) gets the real value. Interpret mode passes
-        # require_aligned=False both times, so distinguish by call order.
-        calls.append(require_aligned)
-        if len(calls) % 2 == 1:
-            raise ValueError("forced: no 128-lane-aligned chunking")
-        return real_pick(nsc, cap, require_aligned=False)
-
-    monkeypatch.setattr(PC, "_pick_zr", pick)
+def test_unrolled_misaligned_cap_matches_allpairs():
+    """A capacity that is not a power of two: receiver blocks straddle
+    supercells and the tail block of each column is masked."""
     cfg = reference_config().replace(world_size=12.0)
     n = 200
     st = _scene(7, n, cfg)
     u, v = F.pair_features(st, cfg)
     want = np.asarray(allpairs_forces(st.positions, u, v, cfg))
-    # interpret=False would need a chip; interpret still honors unroll=True
     got = np.asarray(pallas_celllist_forces(st.positions, u, v, cfg,
-                                            nsc=4, cap=96))
+                                            nsc=4, cap=37, interpret=True))
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)

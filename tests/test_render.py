@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import reference_config, init_scene, from_numpy
-from particle3d_tpu.render import (
+from particle3d import reference_config, init_scene, from_numpy
+from particle3d.render import (
     Camera, camera_axes, view_matrix, projection_matrix, render_frame,
     move_camera, rotate_camera,
 )
-from particle3d_tpu.render.camera import default_camera, PITCH_LIMIT
+from particle3d.render.camera import default_camera, PITCH_LIMIT
 
 
 def test_axes_orthonormal():
@@ -110,7 +110,7 @@ def test_dilate_matches_scatter_within_tolerance():
     renderer: documented tolerance is sub-pixel coverage wobble and rare
     same-seed-pixel eclipses — the images must agree on the vast majority of
     pixels and on every structural element (all species present, border)."""
-    from particle3d_tpu import init_scene
+    from particle3d import init_scene
     import jax
 
     cfg = reference_config()

@@ -10,8 +10,8 @@ import pytest
 
 from http.server import ThreadingHTTPServer
 
-from particle3d_tpu.app.driver import SimulationApp
-from particle3d_tpu.app.server import _Handler
+from particle3d.app.driver import SimulationApp
+from particle3d.app.server import _Handler
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,7 @@ def _get(url):
 
 def test_pages(server_url):
     body, ctype = _get(server_url + "/")
-    assert ctype == "text/html" and b"particle3d-tpu" in body
+    assert ctype == "text/html" and b"particle3d" in body
     assert b"/gl" in body  # cross-link to the WebGL view
     body, ctype = _get(server_url + "/gl")
     assert ctype == "text/html"

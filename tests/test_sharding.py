@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import reference_config, init_scene, step, simulate
-from particle3d_tpu.parallel import (
+from particle3d import reference_config, init_scene, step, simulate
+from particle3d.parallel import (
     make_mesh, shard_state, sharded_step, sharded_simulate, ring_forces,
 )
-from particle3d_tpu.ops import forces as F
-from particle3d_tpu.ops.allpairs import allpairs_forces
+from particle3d.ops import forces as F
+from particle3d.ops.allpairs import allpairs_forces
 
 
 def test_virtual_mesh_has_8_devices():

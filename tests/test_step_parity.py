@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import (
+from particle3d import (
     SimConfig, reference_config, from_numpy, init_scene, step, simulate,
     trajectory, warmup,
 )
-from particle3d_tpu import oracle
+from particle3d import oracle
 
 
 def _random_scene(seed, n, cfg):
@@ -193,7 +193,7 @@ def test_velocity_verlet_harmonic_oscillator_energy():
 
 
 def test_config_validation_errors():
-    from particle3d_tpu import ConfigError
+    from particle3d import ConfigError
     with pytest.raises(ConfigError):
         SimConfig(world_size=1.0, particle_effect_radius=2.0).validate()
     with pytest.raises(ConfigError):

@@ -3,8 +3,8 @@
 import jax
 import jax.numpy as jnp
 
-from particle3d_tpu import reference_config, init_scene
-from particle3d_tpu.utils.tune import candidate_geometries, tune
+from particle3d import reference_config, init_scene
+from particle3d.utils.tune import candidate_geometries, tune
 
 
 def test_candidates_respect_cutoff_and_capacity():
@@ -25,17 +25,8 @@ def test_candidates_include_sub_2x_capacity():
     # production-like shape (the hand-tuned 262k geometry is (24,32) =
     # 1.7x mean; a 2x-floored sweep could never find it)
     cfg = reference_config(world_size=40.0)
-    cands = candidate_geometries(cfg, 262144, require_aligned=True,
-                                 max_candidates=24)
+    cands = candidate_geometries(cfg, 262144, max_candidates=24)
     assert any(cap < 2.0 * 262144 / nsc ** 3 for nsc, cap in cands)
-
-
-def test_candidates_aligned_for_tpu():
-    from particle3d_tpu.ops.pallas_celllist import _pick_zr
-
-    cfg = reference_config(world_size=40.0)
-    for nsc, cap in candidate_geometries(cfg, 262144, require_aligned=True):
-        _pick_zr(nsc, cap, require_aligned=True)  # must not raise
 
 
 def test_tune_runs_and_ranks():

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from particle3d_tpu import reference_config, init_scene, from_numpy
-from particle3d_tpu.utils import (
+from particle3d import reference_config, init_scene, from_numpy
+from particle3d.utils import (
     measure_metrics, kinetic_energy, total_momentum, benchmark_steps,
     StepTimer, save_checkpoint, load_checkpoint,
 )
